@@ -4,7 +4,7 @@
 // m17_conv/golay/puncture/interleave/correlate/crc) over pre-generated
 // noisy 2-samples/symbol baseband waveforms, and prints every decoded
 // stream payload.  The SAME waveform file is decoded by the JAX chain
-// (m17_sdr_tpu/pipeline/ber_parity.py), so per-SNR BER agreement is a
+// (m17_sdr/pipeline/ber_parity.py), so per-SNR BER agreement is a
 // direct implementation comparison, not a statistical coincidence of
 // separate noise draws.
 //

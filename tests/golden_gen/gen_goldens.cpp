@@ -1,7 +1,7 @@
 // Golden-vector generator: drives the *reference* implementation's
 // freestanding L3 transforms (compiled directly from /root/reference,
 // never copied) and dumps known-answer vectors consumed by
-// tests/test_goldens.py to prove bit parity of the TPU build.
+// tests/test_goldens.py to prove bit parity of the JAX build.
 //
 // Build: make -C tests/golden_gen  (writes tests/goldens/goldens.txt)
 

@@ -10,15 +10,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.dsp import channel
-from m17_sdr_tpu.dsp.discriminator import nco_mix
-from m17_sdr_tpu.pipeline import loopback
-from m17_sdr_tpu.pipeline import tx as txp
-from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream
-from m17_sdr_tpu.frame import tx_frames
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign
-from m17_sdr_tpu.spec.typefield import M17Type
+from m17_sdr.dsp import channel
+from m17_sdr.dsp.discriminator import nco_mix
+from m17_sdr.pipeline import loopback
+from m17_sdr.pipeline import tx as txp
+from m17_sdr.pipeline.rx import RxSessionState, rx_stream
+from m17_sdr.frame import tx_frames
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign
+from m17_sdr.spec.typefield import M17Type
 
 B = 2
 

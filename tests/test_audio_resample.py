@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.dsp import iq as iqp
-from m17_sdr_tpu.dsp import resample
-from m17_sdr_tpu.io import audio
+from m17_sdr.dsp import iq as iqp
+from m17_sdr.dsp import resample
+from m17_sdr.io import audio
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +97,7 @@ def test_fir_decimate_dc_gain_and_shape():
 
 def test_pluto_rate_end_to_end(tmp_path):
     """TX at 384 kS/s -> x8 decimating front end -> full RX decode."""
-    from m17_sdr_tpu.app.session import Session
+    from m17_sdr.app.session import Session
 
     sess = Session()
     sess.db.tx_src_call = "G4GUO"

@@ -12,7 +12,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.pipeline import ber_parity as bp
+from m17_sdr.pipeline import ber_parity as bp
 
 REF = pathlib.Path("/root/reference/m17gismo")
 
@@ -34,7 +34,7 @@ def test_quality_gate_drops_slip_garbled_frames():
     """
     import jax.numpy as jnp
 
-    from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream_soft
+    from m17_sdr.pipeline.rx import RxSessionState, rx_stream_soft
 
     p_sig = bp.signal_power(2, 16)
     sigma = float(np.sqrt(p_sig / (10.0 ** (10.0 / 10.0))))

@@ -7,7 +7,7 @@ JSON serialization carries every field the parity record needs.
 
 import jax
 
-from m17_sdr_tpu.pipeline import ber_sweep
+from m17_sdr.pipeline import ber_sweep
 
 
 def test_sweep_points_and_monotony():

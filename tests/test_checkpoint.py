@@ -9,10 +9,10 @@ assembly, AFC/DC, FIR tails) lives in one pytree.
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.app.checkpoint import load_state, save_state
-from m17_sdr_tpu.app.session import Session
-from m17_sdr_tpu.app.streaming import StreamingRx, wire_block_iter
-from m17_sdr_tpu.pipeline.rx import RxSessionState
+from m17_sdr.app.checkpoint import load_state, save_state
+from m17_sdr.app.session import Session
+from m17_sdr.app.streaming import StreamingRx, wire_block_iter
+from m17_sdr.pipeline.rx import RxSessionState
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,7 @@ class TestCheckpointResume:
 
         def run(args):
             r = subprocess.run(
-                [sys.executable, "-m", "m17_sdr_tpu.app.main",
+                [sys.executable, "-m", "m17_sdr.app.main",
                  "--platform", "cpu"] + args,
                 check=True, capture_output=True, text=True, cwd="/root/repo")
             return r.stdout

@@ -12,8 +12,8 @@ with an objective envelope check (m17_tx_rx.cpp:328-332 MODE_3200,
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.io import audio as audiom
-from m17_sdr_tpu.io import codec2
+from m17_sdr.io import audio as audiom
+from m17_sdr.io import codec2
 
 
 def _speechlike(seconds: float = 1.6, rate: int = 8000) -> np.ndarray:
@@ -69,7 +69,7 @@ class TestRealCodec2:
         codec2 encode -> M17 modulate -> AWGN channel -> full RX chain
         -> codec2 decode -> wav, all through the REAL vocoder, scored
         by envelope correlation against the input."""
-        from m17_sdr_tpu.app.session import Session
+        from m17_sdr.app.session import Session
 
         pcm = _speechlike(seconds=1.6)       # 40 ms frames -> 40 frames
         wav_in = tmp_path / "in.wav"

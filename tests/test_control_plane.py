@@ -17,11 +17,11 @@ import sys
 
 import numpy as np
 
-from m17_sdr_tpu.app.main import _mk_session, build_parser
-from m17_sdr_tpu.app.session import GATEWAY_KEYUP_THRESHOLD, Session
-from m17_sdr_tpu.io.reflector import pack_voice_frame
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign as cs
+from m17_sdr.app.main import _mk_session, build_parser
+from m17_sdr.app.session import GATEWAY_KEYUP_THRESHOLD, Session
+from m17_sdr.io.reflector import pack_voice_frame
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign as cs
 
 
 class TestPttWiring:
@@ -74,7 +74,7 @@ class TestDuplex:
         cap = str(tmp_path / "in.iq")
         Session().tx_file(cap, n_frames=2)
         r = subprocess.run(
-            [sys.executable, "-m", "m17_sdr_tpu.app.main",
+            [sys.executable, "-m", "m17_sdr.app.main",
              "--platform", "cpu", "duplex", "--in", cap,
              "--out", str(tmp_path / "o.iq"), "--frames", "2"],
             check=True, capture_output=True, text=True, cwd="/root/repo")
@@ -103,7 +103,7 @@ class TestGatewayNetToRf:
     def test_rf_lsf_comes_from_received_lich(self, tmp_path):
         """The RF key-up must carry the ORIGINATOR's callsigns/meta from
         the network frame's LICH, not the gateway's local identity."""
-        from m17_sdr_tpu.io.reflector import parse_voice_frame
+        from m17_sdr.io.reflector import parse_voice_frame
 
         # network stream originated by M0ABC -> BROADCAST with META
         dst = bitpack.word_to_bytes(0xFFFFFFFFFFFF, 6)
@@ -149,8 +149,8 @@ class TestGatewayLiveLoop:
         import threading
         import time
 
-        from m17_sdr_tpu.io import reflector as refl
-        from m17_sdr_tpu.runtime import UdpTransport
+        from m17_sdr.io import reflector as refl
+        from m17_sdr.runtime import UdpTransport
 
         # RF side: a 24-frame voice session from G4GUO
         rf_in = tmp_path / "rf_in.iq"

@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.dsp import channel, iq as iqp
-from m17_sdr_tpu.dsp.discriminator import RxFrontEndState, rx_front_end
-from m17_sdr_tpu.dsp.filters import (
+from m17_sdr.dsp import channel, iq as iqp
+from m17_sdr.dsp.discriminator import RxFrontEndState, rx_front_end
+from m17_sdr.dsp.filters import (
     normalize_gain,
     polyphase_rrc_bank,
     rrc_filter,
     tx_rrc_polyphase,
 )
-from m17_sdr_tpu.dsp.modulate import ModState, iq_to_int16, modulate_dibits
-from m17_sdr_tpu.spec.constants import DIBIT_TO_PHASE_INC
+from m17_sdr.dsp.modulate import ModState, iq_to_int16, modulate_dibits
+from m17_sdr.spec.constants import DIBIT_TO_PHASE_INC
 
 
 class TestFilters:

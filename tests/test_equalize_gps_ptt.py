@@ -4,9 +4,9 @@ PTT GPIO (ref rpi_gpio.cpp)."""
 import numpy as np
 import jax.numpy as jnp
 
-from m17_sdr_tpu.dsp import equalize as eq
-from m17_sdr_tpu.io import gps as gpsm
-from m17_sdr_tpu.io.ptt import Ptt, SysfsGpio
+from m17_sdr.dsp import equalize as eq
+from m17_sdr.io import gps as gpsm
+from m17_sdr.io.ptt import Ptt, SysfsGpio
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +238,7 @@ class TestEqualizerPipelineStage:
     def _run(self, w, pl, nf, eq):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream_soft
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream_soft
 
         nch = w.shape[0]
         blocks = jnp.asarray(w.reshape(nch, w.shape[1] // 384, 384))
@@ -258,7 +258,7 @@ class TestEqualizerPipelineStage:
         return correct, errs
 
     def test_fading_multipath_ber_improvement(self):
-        from m17_sdr_tpu.pipeline import ber_parity as bp
+        from m17_sdr.pipeline import ber_parity as bp
 
         nch, nf = 4, 40
         wave0, pl = bp.make_waveforms(nch, nf, sigma=0.0, seed=21)
@@ -276,7 +276,7 @@ class TestEqualizerPipelineStage:
         assert c_on >= c_off
 
     def test_clean_channel_no_harm(self):
-        from m17_sdr_tpu.pipeline import ber_parity as bp
+        from m17_sdr.pipeline import ber_parity as bp
 
         nch, nf = 2, 12
         wave, pl = bp.make_waveforms(nch, nf, sigma=0.02, seed=5)
@@ -294,7 +294,7 @@ class TestAutoEqualizer:
     def _isi_blocks(self, nch, nf, seed=21):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline import ber_parity as bp
+        from m17_sdr.pipeline import ber_parity as bp
 
         rng = np.random.default_rng(0)
         wave, pl = bp.make_waveforms(nch, nf, sigma=0.0, seed=seed)
@@ -311,7 +311,7 @@ class TestAutoEqualizer:
     def test_isi_arms_and_matches_forced_eq(self):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream_soft
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream_soft
 
         nch, nf = 8, 16
         blocks, pl = self._isi_blocks(nch, nf)
@@ -352,8 +352,8 @@ class TestAutoEqualizer:
     def test_clean_channels_stay_unarmed_and_bit_identical(self):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline import ber_parity as bp
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream_soft
+        from m17_sdr.pipeline import ber_parity as bp
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream_soft
 
         nch, nf = 4, 12
         wave, _ = bp.make_waveforms(nch, nf, sigma=0.05, seed=3)
@@ -371,7 +371,7 @@ class TestAutoEqualizer:
                                       np.asarray(out_off.stream_gate))
 
     def test_gate_terms_exported_consistently(self):
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream_soft
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream_soft
 
         nch, nf = 4, 12
         blocks, _ = self._isi_blocks(nch, nf, seed=9)

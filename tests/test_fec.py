@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.fec import conv, viterbi
-from m17_sdr_tpu.spec import puncture
+from m17_sdr.fec import conv, viterbi
+from m17_sdr.spec import puncture
 
 
 def _scalar_encode(bits):

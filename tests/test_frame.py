@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.frame import rx_frames, tx_frames
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign, crc, prbs
-from m17_sdr_tpu.spec.constants import DIBIT_TO_SYMBOL
-from m17_sdr_tpu.spec.typefield import M17Type
+from m17_sdr.frame import rx_frames, tx_frames
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign, crc, prbs
+from m17_sdr.spec.constants import DIBIT_TO_SYMBOL
+from m17_sdr.spec.typefield import M17Type
 
 B = 4
 

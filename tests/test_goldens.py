@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.fec import conv, viterbi
-from m17_sdr_tpu.spec import bits, callsign, crc, golay, interleave, prbs, puncture, typefield, whiten
+from m17_sdr.fec import conv, viterbi
+from m17_sdr.spec import bits, callsign, crc, golay, interleave, prbs, puncture, typefield, whiten
 
 GOLDENS = Path(__file__).parent / "goldens" / "goldens.txt"
 

@@ -8,14 +8,14 @@ import time
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.io import codec2, hosts, reflector, sources
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.app.dbase import CircuitType, Dbase
-from m17_sdr_tpu.app.mmi import Mmi
-from m17_sdr_tpu.app.session import Session
-from m17_sdr_tpu.app.view import render
-from m17_sdr_tpu.runtime import DatagramQueue, SampleRing, UdpTransport
-from m17_sdr_tpu.spec import callsign as cs
+from m17_sdr.io import codec2, hosts, reflector, sources
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.app.dbase import CircuitType, Dbase
+from m17_sdr.app.mmi import Mmi
+from m17_sdr.app.session import Session
+from m17_sdr.app.view import render
+from m17_sdr.runtime import DatagramQueue, SampleRing, UdpTransport
+from m17_sdr.spec import callsign as cs
 
 
 class TestRuntime:
@@ -137,11 +137,11 @@ class TestUdpIqTransport:
         with the network standing in for the SDR."""
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.app.streaming import StreamingRx
-        from m17_sdr_tpu.io.sources import UdpSampleSink, UdpSampleSource
-        from m17_sdr_tpu.pipeline import tx as txp
-        from m17_sdr_tpu.frame import tx_frames
-        from m17_sdr_tpu.spec.typefield import M17Type
+        from m17_sdr.app.streaming import StreamingRx
+        from m17_sdr.io.sources import UdpSampleSink, UdpSampleSource
+        from m17_sdr.pipeline import tx as txp
+        from m17_sdr.frame import tx_frames
+        from m17_sdr.spec.typefield import M17Type
 
         rng = np.random.default_rng(11)
         payloads = rng.integers(0, 256, (1, 6, 16), dtype=np.uint8)
@@ -190,10 +190,10 @@ class TestRxLive:
 
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.io.sources import UdpSampleSink
-        from m17_sdr_tpu.pipeline import tx as txp
-        from m17_sdr_tpu.frame import tx_frames
-        from m17_sdr_tpu.spec.typefield import M17Type
+        from m17_sdr.io.sources import UdpSampleSink
+        from m17_sdr.pipeline import tx as txp
+        from m17_sdr.frame import tx_frames
+        from m17_sdr.spec.typefield import M17Type
 
         rng = np.random.default_rng(12)
         payloads = rng.integers(0, 256, (1, 6, 16), dtype=np.uint8)
@@ -223,9 +223,9 @@ class TestRxLive:
         # pre-warm every chunk shape this session can dispatch (full
         # chunks + the 1/2-block flush remainders) so the paced-sender
         # overlap below measures decoding, not jit compiles
-        from m17_sdr_tpu.app import streaming as streamingm
-        from m17_sdr_tpu.pipeline.rx import RxSessionState
-        from m17_sdr_tpu.dsp import resample as resamplem
+        from m17_sdr.app import streaming as streamingm
+        from m17_sdr.pipeline.rx import RxSessionState
+        from m17_sdr.dsp import resample as resamplem
 
         warm_fn = streamingm._chunk_fn(False, 1, "auto")
         warm_state = streamingm.StreamChunkState(
@@ -281,13 +281,13 @@ class TestRxLivePlutoRate:
 
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.app import streaming as streamingm
-        from m17_sdr_tpu.dsp import resample as resamplem
-        from m17_sdr_tpu.io.sources import UdpSampleSink
-        from m17_sdr_tpu.pipeline import tx as txp
-        from m17_sdr_tpu.pipeline.rx import RxSessionState
-        from m17_sdr_tpu.frame import tx_frames
-        from m17_sdr_tpu.spec.typefield import M17Type
+        from m17_sdr.app import streaming as streamingm
+        from m17_sdr.dsp import resample as resamplem
+        from m17_sdr.io.sources import UdpSampleSink
+        from m17_sdr.pipeline import tx as txp
+        from m17_sdr.pipeline.rx import RxSessionState
+        from m17_sdr.frame import tx_frames
+        from m17_sdr.spec.typefield import M17Type
 
         rng = np.random.default_rng(12)
         payloads = rng.integers(0, 256, (1, 6, 16), dtype=np.uint8)
@@ -386,7 +386,7 @@ class TestMmi:
 
     def test_view_renders(self):
         s = render(Dbase(), signal=0.5)
-        assert "M17 TPU" in s and "RXF" in s
+        assert "M17 SDR" in s and "RXF" in s
 
 
 class TestSessionFileLoop:
@@ -471,7 +471,7 @@ class TestSessionFileLoop:
         """A GPS fix embedded in the LSF META survives the air interface
         and is reported by the receiver (capability the reference left
         dormant: gps.cpp fix never reaches TX meta, SURVEY.md row 26)."""
-        from m17_sdr_tpu.io import gps as gpsm
+        from m17_sdr.io import gps as gpsm
 
         iq = tmp_path / "gps.iq"
         fix = gpsm.GpsFix(lat=50.8037, lon=-30.4419, alt=250)
@@ -494,7 +494,7 @@ class TestOutOfBoxAssets:
     main.cpp:147, M17Hosts.txt read by m17_net.cpp:314-334)."""
 
     def test_shipped_config_profile_loads(self):
-        from m17_sdr_tpu.app.mmi import Mmi
+        from m17_sdr.app.mmi import Mmi
 
         mmi = Mmi()
         mmi.load_file("assets/config.txt")
@@ -507,7 +507,7 @@ class TestOutOfBoxAssets:
         assert mmi.db.afc is False
 
     def test_connect_resolves_directory_name(self):
-        from m17_sdr_tpu.app.session import Session
+        from m17_sdr.app.session import Session
 
         s = Session()
         s.db.extra["hosts_file"] = "assets/M17Hosts.txt"
@@ -525,7 +525,7 @@ class TestOutOfBoxAssets:
         reflector clients subscribe to a module and expect gateway
         streams addressed to it.  Src/type/meta pass through; without a
         designator (direct-IP connect) the LICH is untouched."""
-        from m17_sdr_tpu.app.session import Session
+        from m17_sdr.app.session import Session
 
         import pathlib
         import tempfile
@@ -557,7 +557,7 @@ class TestOutOfBoxAssets:
     def test_connect_explicit_port_beats_directory(self):
         """An explicitly passed port must not be silently replaced by
         the directory entry's port (code-review finding)."""
-        from m17_sdr_tpu.app.session import Session
+        from m17_sdr.app.session import Session
 
         s = Session()
         s.db.extra["hosts_file"] = "assets/M17Hosts.txt"
@@ -581,7 +581,7 @@ class TestOutOfBoxAssets:
         env = dict(os.environ)
         env["TERM"] = "xterm"
         p = subprocess.Popen(
-            [sys.executable, "-m", "m17_sdr_tpu.app.main",
+            [sys.executable, "-m", "m17_sdr.app.main",
              "--platform", "cpu", "-c", "assets/config.txt",
              "repl", "--live"],
             stdin=sfd, stdout=sfd, stderr=subprocess.DEVNULL,
@@ -615,7 +615,7 @@ class TestTxLiveMic:
         before the head goes on the air: a live recorder's startup
         latency must not become dead air between LSF and frame 0
         (which trips a receiver's idle squelch)."""
-        from m17_sdr_tpu.app import session as sessionm
+        from m17_sdr.app import session as sessionm
 
         order = []
 
@@ -663,10 +663,10 @@ class TestTxLiveMic:
 
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.app import streaming as streamingm
-        from m17_sdr_tpu.dsp import resample as resamplem
-        from m17_sdr_tpu.io.sources import UdpSampleSink
-        from m17_sdr_tpu.pipeline.rx import RxSessionState
+        from m17_sdr.app import streaming as streamingm
+        from m17_sdr.dsp import resample as resamplem
+        from m17_sdr.io.sources import UdpSampleSink
+        from m17_sdr.pipeline.rx import RxSessionState
 
         n_frames = 10
         # the "microphone": 8 kHz s16le tone file; the stand-in
@@ -700,7 +700,7 @@ class TestTxLiveMic:
         # sender spends seconds in jit before its first datagram and
         # rx_live times out waiting (head [1,576], frame [1,192],
         # tail [1,384] dibit shapes)
-        from m17_sdr_tpu.pipeline import tx as txp
+        from m17_sdr.pipeline import tx as txp
 
         warm_mod = None
         for nd in (576, 192, 384):
@@ -755,7 +755,7 @@ class TestCliArgContracts:
     """Lock the round-5 CLI contracts the code review flagged."""
 
     def test_tx_live_frames_default_is_open_ended(self):
-        from m17_sdr_tpu.app.main import build_parser
+        from m17_sdr.app.main import build_parser
 
         args = build_parser().parse_args(["tx", "--live", "--out", "x"])
         # the file-mode default of 10 must NOT bound the live loop
@@ -768,7 +768,7 @@ class TestCliArgContracts:
         """--live transmits mic voice; combining it with --bert,
         --packet, or --payload must error instead of silently
         recording voice while the user thinks a BER test is running."""
-        from m17_sdr_tpu.app.main import main
+        from m17_sdr.app.main import main
 
         for opt in (["--bert", "100"], ["--packet", "f.bin"],
                     ["--payload", "f.bin"]):
@@ -780,7 +780,7 @@ class TestCliArgContracts:
         """tx --udp-out at Pluto rate must emit 15360-sample datagrams
         (the size rx --udp --rate 384000 reads); 1920-sample datagrams
         are silently discarded by the receiving UdpSampleSource."""
-        from m17_sdr_tpu.app.main import _udp_sink, build_parser
+        from m17_sdr.app.main import _udp_sink, build_parser
 
         args = build_parser().parse_args(
             ["tx", "--live", "--out", "x", "--udp-out", ":42973",
@@ -799,7 +799,7 @@ class TestCliArgContracts:
             sink.close()
 
     def test_rx_equalize_choices(self):
-        from m17_sdr_tpu.app.main import build_parser
+        from m17_sdr.app.main import build_parser
 
         p = build_parser()
         assert p.parse_args(["rx", "--in", "x"]).equalize == "auto"
@@ -811,7 +811,7 @@ class TestCliArgContracts:
     def test_rx_live_honors_equalize_off(self, monkeypatch):
         """rx --udp must pass the --equalize choice through to the live
         chunk builder (it used to be silently ignored)."""
-        from m17_sdr_tpu.app import streaming as streamingm
+        from m17_sdr.app import streaming as streamingm
 
         seen = {}
         real = streamingm._chunk_fn

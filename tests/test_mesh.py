@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.mesh import halo, sharding
-from m17_sdr_tpu.pipeline import loopback, tx as txp
-from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream
-from m17_sdr_tpu.spec.constants import FT_STREAM
+from m17_sdr.mesh import halo, sharding
+from m17_sdr.pipeline import loopback, tx as txp
+from m17_sdr.pipeline.rx import RxSessionState, rx_stream
+from m17_sdr.spec.constants import FT_STREAM
 
 from test_pipeline import _mk_lsf, _payloads
 
@@ -42,7 +42,7 @@ class TestPodBertSweep:
         accounting -- sharded over the mesh's channel axis must equal
         the unsharded run bit-exactly, and the psum'd totals must
         equal the sums of the per-channel counters."""
-        from m17_sdr_tpu.pipeline import ber_sweep as bs
+        from m17_sdr.pipeline import ber_sweep as bs
 
         b, nf = 32, 6
         keys = jax.random.split(jax.random.PRNGKey(7), b)

@@ -5,7 +5,8 @@ sharded across them, psum'd counters crossing the process boundary —
 the N>=2-host code path (SURVEY.md section 5.8; BASELINE scale target).
 The tool spawns the workers itself; this test drives it end to end at
 small sizes and asserts the distributed run is bit-identical to the
-single-process one.
+single-process one.  The workers force the CPU platform: several JAX
+processes must not share one GPU.
 """
 
 import json

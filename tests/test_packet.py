@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.frame import tx_frames
-from m17_sdr_tpu.pipeline import loopback
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign
-from m17_sdr_tpu.spec.typefield import CCT_PACKET, M17Type
+from m17_sdr.frame import tx_frames
+from m17_sdr.pipeline import loopback
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign
+from m17_sdr.spec.typefield import CCT_PACKET, M17Type
 
 
 def _lsf(batch: int) -> jnp.ndarray:
@@ -92,8 +92,8 @@ def test_packet_cli_session_roundtrip(tmp_path):
     capture that rx --packet-out reassembles byte-exactly (CRC-checked)
     through the full FM chain -- the packet path the reference left
     dormant, surfaced at the CLI."""
-    from m17_sdr_tpu.app.dbase import Dbase
-    from m17_sdr_tpu.app.session import Session
+    from m17_sdr.app.dbase import Dbase
+    from m17_sdr.app.session import Session
 
     rng = np.random.default_rng(12)
     data = rng.integers(0, 256, 333, dtype=np.uint8)
@@ -118,7 +118,7 @@ def test_packet_cli_rejects_oversize(tmp_path):
     emitted with a wrapped counter."""
     import pytest
 
-    from m17_sdr_tpu.app.session import Session
+    from m17_sdr.app.session import Session
 
     big = tmp_path / "big.bin"
     big.write_bytes(bytes(1000))

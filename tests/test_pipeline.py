@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.pipeline import loopback
-from m17_sdr_tpu.frame import tx_frames
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign
-from m17_sdr_tpu.spec.typefield import M17Type
+from m17_sdr.pipeline import loopback
+from m17_sdr.frame import tx_frames
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign
+from m17_sdr.spec.typefield import M17Type
 
 B = 2
 NF = 4
@@ -133,9 +133,9 @@ class TestFnContinuityGate:
     passing frame re-anchors; a fresh session accepts any FN."""
 
     def _run_session(self, fn0):
-        from m17_sdr_tpu.pipeline import tx as txp
-        from m17_sdr_tpu.pipeline.loopback import _blockify
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream
+        from m17_sdr.pipeline import tx as txp
+        from m17_sdr.pipeline.loopback import _blockify
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream
 
         lsf = _mk_lsf(1)
         pl = _payloads(1, 8, seed=3)
@@ -172,13 +172,13 @@ class TestFnContinuityGate:
         """A confident misframe (absurd FN mid-stream) must not route;
         the anchor follows it, so exactly one clean frame after it is
         sacrificed and the stream recovers."""
-        from m17_sdr_tpu.pipeline import tx as txp
-        from m17_sdr_tpu.pipeline.loopback import _blockify
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_stream
+        from m17_sdr.pipeline import tx as txp
+        from m17_sdr.pipeline.loopback import _blockify
+        from m17_sdr.pipeline.rx import RxSessionState, rx_stream
 
         # splice two sessions' FN spaces: frames 0..3 at fn 0..3, then
         # 4..7 at fn 5000.. -- the jump mimics a decoded misframe run
-        from m17_sdr_tpu.frame import tx_frames
+        from m17_sdr.frame import tx_frames
         lsf = _mk_lsf(1)
         pl = _payloads(1, 8, seed=4)
         d1 = txp.build_voice_session_dibits(
@@ -190,7 +190,7 @@ class TestFnContinuityGate:
             jnp.repeat(lsf, 4, axis=0),
             (idx % 6 + 4).astype(jnp.int32),
             5000 + idx, pl[0, 4:8]).reshape(1, -1)
-        from m17_sdr_tpu.spec.constants import FRAME_SYMBOLS
+        from m17_sdr.spec.constants import FRAME_SYMBOLS
         eot_start = d1.shape[1] - 2 * FRAME_SYMBOLS  # EOT + idle tail
         dibits = jnp.concatenate(
             [d1[:, :eot_start], stream2, d1[:, eot_start:]], axis=1)
@@ -216,8 +216,8 @@ class TestSessionGranularityDecode:
     def test_whole_session_call_decodes_steady_state(self):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline.benchdata import make_bench_blocks
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_block
+        from m17_sdr.pipeline.benchdata import make_bench_blocks
+        from m17_sdr.pipeline.rx import RxSessionState, rx_block
 
         b = 64
         dev_blocks, nblk = make_bench_blocks(b, 1920)
@@ -238,8 +238,8 @@ class TestSessionGranularityDecode:
     def test_two_block_call_bit_equals_chained(self):
         import jax.numpy as jnp
 
-        from m17_sdr_tpu.pipeline.benchdata import make_bench_blocks
-        from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_block
+        from m17_sdr.pipeline.benchdata import make_bench_blocks
+        from m17_sdr.pipeline.rx import RxSessionState, rx_block
 
         b = 64
         dev_blocks, nblk = make_bench_blocks(b, 1920)

@@ -7,7 +7,7 @@ m17_halfband_filter (m17_dsp.cpp:319-343).
 import numpy as np
 import jax.numpy as jnp
 
-from m17_sdr_tpu.dsp import pll
+from m17_sdr.dsp import pll
 
 SRATE = 48000.0
 

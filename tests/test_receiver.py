@@ -9,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.dsp.filters import normalize_gain, rrc_filter
-from m17_sdr_tpu.frame import rx_frames, tx_frames
-from m17_sdr_tpu.frame.receiver import ReceiverState, receive_block
-from m17_sdr_tpu.spec import bits as bitpack
-from m17_sdr_tpu.spec import callsign
-from m17_sdr_tpu.spec.constants import FT_LINK, FT_STREAM
-from m17_sdr_tpu.spec.typefield import M17Type
+from m17_sdr.dsp.filters import normalize_gain, rrc_filter
+from m17_sdr.frame import rx_frames, tx_frames
+from m17_sdr.frame.receiver import ReceiverState, receive_block
+from m17_sdr.spec import bits as bitpack
+from m17_sdr.spec import callsign
+from m17_sdr.spec.constants import FT_LINK, FT_STREAM
+from m17_sdr.spec.typefield import M17Type
 
 # 2-samples/symbol shaping filter (m17_test_init, m17_test.cpp:58-61)
 _RRC2 = normalize_gain(rrc_filter(0.5, 62, 2), 1.0)

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from m17_sdr_tpu.dsp.discriminator import (
+from m17_sdr.dsp.discriminator import (
     AGC_GAIN_MAX,
     AGC_HIGH,
     AGC_LOW,

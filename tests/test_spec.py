@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from m17_sdr_tpu.spec import bits, callsign, constants, crc, golay, interleave, prbs, puncture, typefield, whiten
+from m17_sdr.spec import bits, callsign, constants, crc, golay, interleave, prbs, puncture, typefield, whiten
 
 
 class TestBits:

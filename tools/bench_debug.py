@@ -15,11 +15,11 @@ import numpy as np
 
 def gen(batch, block=1920):
     import jax.numpy as jnp
-    from m17_sdr_tpu.pipeline import tx as txp
-    from m17_sdr_tpu.spec import bits as bitpack
-    from m17_sdr_tpu.spec import callsign
-    from m17_sdr_tpu.frame import tx_frames
-    from m17_sdr_tpu.spec.typefield import M17Type
+    from m17_sdr.pipeline import tx as txp
+    from m17_sdr.spec import bits as bitpack
+    from m17_sdr.spec import callsign
+    from m17_sdr.frame import tx_frames
+    from m17_sdr.spec.typefield import M17Type
 
     b0 = 64
     dst = jnp.asarray(np.tile(
@@ -45,7 +45,7 @@ def gen(batch, block=1920):
 def run(data):
     import jax
     import jax.numpy as jnp
-    from m17_sdr_tpu.pipeline.rx import RxSessionState, rx_block
+    from m17_sdr.pipeline.rx import RxSessionState, rx_block
 
     batch, nblk, _, block = data.shape
     state = RxSessionState.init(batch)

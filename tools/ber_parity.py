@@ -47,7 +47,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from m17_sdr_tpu.pipeline import ber_parity as bp
+    from m17_sdr.pipeline import ber_parity as bp
 
     doc = {
         "methodology": "shared-waveform: identical noisy samples "

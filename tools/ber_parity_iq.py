@@ -33,7 +33,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from m17_sdr_tpu.pipeline import ber_parity_iq as biq
+    from m17_sdr.pipeline import ber_parity_iq as biq
 
     # the FM chain's RF waterfall sits at ~13-18 dB (test_ber_sweep);
     # span it plus clear-channel headroom

@@ -12,7 +12,8 @@ multi-host pod uses; SURVEY.md section 5.8).  This exercises code the
 single-process virtual mesh never touches: distributed service
 init/handshake, global-array assembly from process-local shards
 (jax.make_array_from_callback), cross-process collectives, and
-multihost_utils.process_allgather.
+multihost_utils.process_allgather.  The workers force the CPU
+platform: two JAX processes must not share one GPU.
 
 The parent then runs the SAME sweep unsharded in-process and asserts
 the distributed run's per-channel counters and psum'd totals are
@@ -55,7 +56,7 @@ def worker(args) -> None:
     from jax.experimental import multihost_utils
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from m17_sdr_tpu.pipeline import ber_sweep as bs
+    from m17_sdr.pipeline import ber_sweep as bs
 
     assert jax.process_count() == NPROC
     assert len(jax.devices()) == NPROC * LOCAL_DEVICES
@@ -187,7 +188,7 @@ def main() -> None:
     import numpy as np
     import jax.numpy as jnp
 
-    from m17_sdr_tpu.pipeline import ber_sweep as bs
+    from m17_sdr.pipeline import ber_sweep as bs
 
     points = np.linspace(args.snr_min, args.snr_max,
                          args.points).astype(np.float32)

@@ -49,16 +49,16 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from m17_sdr_tpu.dsp import channel, resample
-    from m17_sdr_tpu.frame import tx_frames
-    from m17_sdr_tpu.pipeline import ber_parity as bp
-    from m17_sdr_tpu.pipeline import tx as txp
-    from m17_sdr_tpu.pipeline.loopback import _blockify
-    from m17_sdr_tpu.pipeline.rx import (
+    from m17_sdr.dsp import channel, resample
+    from m17_sdr.frame import tx_frames
+    from m17_sdr.pipeline import ber_parity as bp
+    from m17_sdr.pipeline import tx as txp
+    from m17_sdr.pipeline.loopback import _blockify
+    from m17_sdr.pipeline.rx import (
         STREAM_QUALITY_MIN, RxSessionState, rx_stream, rx_stream_soft)
-    from m17_sdr_tpu.spec import bits as bitpack
-    from m17_sdr_tpu.spec import callsign as cs
-    from m17_sdr_tpu.spec.typefield import M17Type
+    from m17_sdr.spec import bits as bitpack
+    from m17_sdr.spec import callsign as cs
+    from m17_sdr.spec.typefield import M17Type
 
     nch, nf = args.channels, args.frames
     rng = np.random.default_rng(args.seed)

@@ -52,9 +52,9 @@ def main() -> None:
 
     import numpy as np
 
-    from m17_sdr_tpu.app.streaming import (
+    from m17_sdr.app.streaming import (
         DEFAULT_CHUNK_BLOCKS, StreamingRx)
-    from m17_sdr_tpu.spec.constants import BLOCK_SAMPLES
+    from m17_sdr.spec.constants import BLOCK_SAMPLES
 
     batch, n_blocks = args.batch, args.blocks
     factor = args.rate // 48_000

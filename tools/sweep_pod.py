@@ -50,9 +50,9 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from m17_sdr_tpu.mesh import sharding
-    from m17_sdr_tpu.pipeline import ber_sweep as bs
-    from m17_sdr_tpu.spec.constants import BERT_BITS
+    from m17_sdr.mesh import sharding
+    from m17_sdr.pipeline import ber_sweep as bs
+    from m17_sdr.spec.constants import BERT_BITS
 
     b = args.channels
     assert b % args.points == 0 and b % args.devices == 0
